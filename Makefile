@@ -1,34 +1,34 @@
-# Developer entry points. `make test` mirrors the CI/driver invocation.
-.PHONY: test test-fast bench micro scaling eval readme native install
+# Developer entry points. `make test` mirrors the CI invocation.
+.PHONY: test test-fast test-gpu smoke bench micro scaling eval native install
 
-# Test budget (measured round 3, 2-core CPU rig): cold JAX compile cache
-# 6:51 for the full 124-test suite, ~4:30 warm — under the 8-minute budget,
-# so the full suite stays the default gate; `test-fast` skips the 2
-# slow-marked integration tests when iterating.
 test:
 	python -m pytest tests/ -q
 
 test-fast:
 	python -m pytest tests/ -q -m "not slow"
 
+# Card-only tests (skip on the CPU).
+test-gpu:
+	JAX_PLATFORMS=cuda,cpu python -m pytest tests/ -q -m gpu
+
+# Main path on one GPU: kernel parity + the CLI configs, one JSON line last.
+smoke:
+	python chip_smoke.py
+
 bench:
 	python bench.py
 
-# Per-kernel device-time receipts (TPU) -> MICRO_r04.json
+# Per-kernel device times against the card's peaks (benchmarks/micro.py).
 micro:
-	python benchmarks/micro.py --out MICRO_r04.json
+	python benchmarks/micro.py
 
-# Dist-BA scaling curve + compute/comm breakdown (8-virtual-device CPU mesh)
+# Dist-BA scaling curve over the available devices.
 scaling:
-	python benchmarks/scaling.py --out SCALING_r04.json
+	python benchmarks/scaling.py
 
-# Full staged evaluation (BASELINE configs 0-10) -> RESULTS_r04.json + RESULTS.md
+# Staged evaluation (BASELINE configs 0-10) -> eval_out/.
 eval:
-	python eval.py --round 4
-
-# Regenerate README's Performance section from the latest artifacts
-readme:
-	python scripts/sync_readme.py
+	python eval.py
 
 native:
 	$(MAKE) -C native

@@ -5,13 +5,11 @@ op back to its source line via the compiled HLO's metadata, and prints a
 per-source-line budget table — the evidence trail for where each
 millisecond of 1/fps goes. Writes JSON with --out.
 
-Run: python benchmarks/attribute_trace.py [--out ATTR_r05.json]
+Run on the GPU: python benchmarks/attribute_trace.py [--out FILE]
 """
 from __future__ import annotations
 
 import collections
-import glob
-import gzip
 import json
 import math
 import os
@@ -26,6 +24,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from benchmarks import device as dev
+
 
 def main() -> None:
     from uwslam_tpu.camera import PinholeCamera
@@ -33,6 +33,7 @@ def main() -> None:
     from uwslam_tpu.tracking.sequence import track_sequence_batched
     from uwslam_tpu.utils.synthetic import render_plane_view
 
+    dev.require_gpu()
     cam = PinholeCamera(
         fx=525.0, fy=525.0, cx=319.5, cy=239.5, width=640, height=480
     )
@@ -77,28 +78,12 @@ def main() -> None:
         np.asarray(run(frames + 0.1 * i))
     jax.profiler.stop_trace()
 
-    path = glob.glob(os.path.join(tdir, "plugins/profile/*/*.trace.json.gz"))[0]
-    with gzip.open(path) as fh:
-        d = json.load(fh)
-    events = d["traceEvents"]
-    pid_names = {
-        e.get("pid"): e["args"].get("name", "")
-        for e in events
-        if e.get("ph") == "M" and e.get("name") == "process_name"
-        and "args" in e
-    }
+    events = dev.device_events(dev.load_trace(tdir))
     agg = collections.defaultdict(float)
-    span = 0.0
+    span = dev.busy_us(events) / 1e3 / reps
     for e in events:
-        if e.get("ph") != "X":
-            continue
-        if "TPU" not in pid_names.get(e.get("pid"), ""):
-            continue
         name = e.get("name", "")
         dur = e.get("dur", 0) / 1e3 / reps
-        if name.startswith("jit_"):
-            span += dur
-            continue
         key = src.get(name, ("<unattributed>", name.split(".")[0]))
         agg[(key[0], key[1])] += dur
     shutil.rmtree(tdir, ignore_errors=True)
@@ -109,9 +94,9 @@ def main() -> None:
         if v >= 0.05
     ]
     out = {
-        "device": str(jax.devices()[0]),
+        "device": dev.device_info(),
         "chunk": "96 frames, 95 tracked pairs (bench.py program)",
-        "device_span_ms_per_chunk": round(span, 2),
+        "device_busy_ms_per_chunk": round(span, 3),
         "attribution": rows,
     }
     print(json.dumps(out, indent=1))

@@ -1,6 +1,6 @@
 // uwslam-tpu native data loader.
 //
-// TPU-native equivalent of the reference's C++ frame-ingest runtime
+// Equivalent of the reference's C++ frame-ingest runtime
 // (/root/reference/src/System.cpp:225-262 AddFrame: blocking cv::imread in
 // the main loop). Here decoding runs on a worker thread pool with a bounded
 // ring of pre-decoded float32 frames, so host I/O overlaps device compute.

@@ -3,7 +3,7 @@
 Each of the two processes exposes 4 virtual CPU devices (8 global), joins
 the coordinator, builds the landmark mesh over ALL global devices, and runs
 one distributed_bundle_adjust whose psums cross the process boundary — the
-DCN control path that single-process 8-device tests cannot exercise.
+multi-process control path that single-process 8-device tests cannot exercise.
 
 Usage: python _dist_worker.py <process_id> <coordinator_port> <out_json>
 """

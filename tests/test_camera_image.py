@@ -1,4 +1,5 @@
 """Camera model, calibration parsing, pyramid, and sampling tests."""
+import json
 import os
 
 import jax.numpy as jnp
@@ -20,7 +21,42 @@ from uwslam_tpu.image import (
     scharr_gradients,
 )
 
-REF_CALIB = "/root/reference/calibration"
+CONFIGS = os.path.join(os.path.dirname(__file__), "..", "configs")
+
+
+def reference_xml(directory, name: str) -> str:
+    """Write configs/calibration_<name>.json as the reference's OpenCV
+    FileStorage XML (calibrationTUM.xml / calibrationEUROC.xml schema) and
+    return its path. No distortion is written as the reference's
+    [0 0 0 1] sentinel."""
+    with open(os.path.join(CONFIGS, f"calibration_{name}.json")) as f:
+        d = json.load(f)
+    dist = [d.get(k, 0.0) for k in ("k1", "k2", "p1", "p2")]
+    if not any(dist):
+        dist = [0, 0, 0, 1]
+
+    def matrix(tag, vals):
+        return (
+            f'<{tag} type_id="opencv-matrix">\n  <rows>1</rows>\n'
+            f"  <cols>4</cols>\n  <dt>d</dt>\n"
+            f"  <data>\n    {' '.join(repr(float(v)) for v in vals)}</data></{tag}>"
+        )
+
+    xml = "\n".join([
+        '<?xml version="1.0"?>',
+        "<opencv_storage>",
+        f"<in_width>{d['width']}</in_width>",
+        f"<in_height>{d['height']}</in_height>",
+        f"<out_width>{d.get('out_width', d['width'])}</out_width>",
+        f"<out_height>{d.get('out_height', d['height'])}</out_height>",
+        matrix("calibration_values", [d["fx"], d["fy"], d["cx"], d["cy"]]),
+        matrix("rectification", dist),
+        "</opencv_storage>",
+    ])
+    path = os.path.join(str(directory), f"calibration{name.upper()}.xml")
+    with open(path, "w") as f:
+        f.write(xml + "\n")
+    return path
 
 
 def tum_cam():
@@ -69,15 +105,15 @@ class TestCameraModel:
 
 
 class TestCalibrationXML:
-    def test_tum_xml(self):
-        cal = load_opencv_xml(os.path.join(REF_CALIB, "calibrationTUM.xml"))
+    def test_tum_xml(self, tmp_path):
+        cal = load_opencv_xml(reference_xml(tmp_path, "tum"))
         assert cal.raw.fx == 525 and cal.raw.fy == 525
         assert cal.raw.cx == 319.5 and cal.raw.cy == 239.5
         assert cal.raw.width == 640 and cal.out_width == 640
         assert not cal.needs_rectification  # rectification = [0 0 0 1]
 
-    def test_euroc_xml(self):
-        cal = load_opencv_xml(os.path.join(REF_CALIB, "calibrationEUROC.xml"))
+    def test_euroc_xml(self, tmp_path):
+        cal = load_opencv_xml(reference_xml(tmp_path, "euroc"))
         assert cal.raw.fx == pytest.approx(458.654)
         assert cal.raw.width == 752 and cal.out_width == 736
         assert cal.needs_rectification
@@ -100,8 +136,8 @@ class TestRectification:
         out = remap_bilinear(img, m)
         np.testing.assert_allclose(out, img, atol=1e-2)
 
-    def test_optimal_new_camera_euroc(self):
-        cal = load_opencv_xml(os.path.join(REF_CALIB, "calibrationEUROC.xml"))
+    def test_optimal_new_camera_euroc(self, tmp_path):
+        cal = load_opencv_xml(reference_xml(tmp_path, "euroc"))
         rect = optimal_new_camera(cal.raw, cal.out_width, cal.out_height)
         assert rect.width == 736
         # Rectified principal point lands inside the image.
@@ -150,69 +186,3 @@ class TestPyramid:
 
 if __name__ == "__main__":
     pytest.main([__file__, "-x", "-q"])
-
-
-class TestTwoPassRemap:
-    """Gather-free two-pass rectification (camera/model.py TwoPassRemap)
-    must reproduce the exact 4-tap bilinear remap to sub-ADU accuracy on
-    the real EUROC rectification map, and exactly on separable maps."""
-
-    def _euroc_map(self):
-        from uwslam_tpu.camera import optimal_new_camera, undistort_map
-        from uwslam_tpu.camera.calibration import load_opencv_xml
-
-        cal = load_opencv_xml(os.path.join(REF_CALIB, "calibrationEUROC.xml"))
-        rect = optimal_new_camera(cal.raw, cal.out_width, cal.out_height)
-        return undistort_map(cal.raw, rect)
-
-    def test_matches_gather_remap_on_euroc_map(self):
-        from uwslam_tpu.camera.model import (
-            build_two_pass_remap,
-            remap_two_pass,
-        )
-
-        m = self._euroc_map()
-        H, W = 480, 752  # RAW EUROC source dims (map output is 480x736)
-        rm = build_two_pass_remap(m, src_width=W, src_height=H)
-        assert rm is not None
-        # Smooth natural-image stand-in (bandlimited sinusoid mixture).
-        v, u = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
-        img = (
-            128
-            + 60 * np.sin(u / 7.3)
-            + 50 * np.cos(v / 9.1)
-            + 17 * np.sin((u + 2 * v) / 5.7)
-        ).astype(np.float32)
-        img = jnp.asarray(img)
-        exact = np.asarray(remap_bilinear(img, m))
-        fast = np.asarray(remap_two_pass(img, rm))
-        valid = np.asarray(rm.valid)
-        diff = np.abs(exact - fast)[valid]
-        # Two-pass error bound: vertical-map variation across one source
-        # column times the image gradient — sub-ADU for radtan maps.
-        assert diff.max() < 1.0
-        assert diff.mean() < 0.05
-        # Invalid region takes the fill value on both paths.
-        np.testing.assert_allclose(fast[~valid], 0.0)
-
-    def test_exact_on_separable_shift(self):
-        from uwslam_tpu.camera.model import (
-            build_two_pass_remap,
-            remap_two_pass,
-        )
-
-        rng = np.random.default_rng(1)
-        H, W = 48, 64
-        img = jnp.asarray(rng.uniform(0, 255, (H, W)).astype(np.float32))
-        v, u = np.meshgrid(
-            np.arange(H, dtype=np.float32),
-            np.arange(W, dtype=np.float32),
-            indexing="ij",
-        )
-        # Separable fractional shift: two-pass == true bilinear exactly.
-        m = jnp.asarray(np.stack([u + 3.25, v - 2.5], axis=-1))
-        rm = build_two_pass_remap(m)
-        assert rm is not None
-        exact = np.asarray(remap_bilinear(img, m))
-        fast = np.asarray(remap_two_pass(img, rm))
-        np.testing.assert_allclose(fast, exact, atol=1e-3)

@@ -1,4 +1,5 @@
-"""Native C++ loader tests: decode parity vs PIL, in-order prefetch."""
+"""Native C++ loader tests: decode parity vs PIL, in-order prefetch, and the
+numpy PGM reader that needs neither."""
 import os
 
 import numpy as np
@@ -21,12 +22,14 @@ def png_dir(tmp_path_factory):
     return paths
 
 
-needs_native = pytest.mark.skipif(
-    not native.available(), reason="native loader not built"
-)
+@pytest.fixture
+def needs_native():
+    """The library is built at first use; skip where that cannot happen."""
+    if not native.available():
+        pytest.skip("native loader unavailable (no g++ / libpng / libjpeg)")
 
 
-@needs_native
+@pytest.mark.usefixtures("needs_native")
 class TestNativeDecode:
     def test_png_8bit_matches_pil(self, png_dir):
         for p, arr in png_dir:
@@ -61,7 +64,7 @@ class TestNativeDecode:
             native.decode("/nonexistent/file.png")
 
 
-@needs_native
+@pytest.mark.usefixtures("needs_native")
 class TestNativeLoader:
     def test_in_order_iteration(self, png_dir):
         paths = [p for p, _ in png_dir]
@@ -79,6 +82,56 @@ class TestNativeLoader:
         count = sum(1 for _ in loader)
         loader.close()
         assert count == len(paths)
+
+
+class TestPgmReader:
+    @pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+    def test_roundtrip(self, tmp_path, dtype):
+        from uwslam_tpu.io import read_pgm, write_pgm
+
+        top = np.iinfo(dtype).max
+        arr = (np.arange(24 * 37, dtype=np.int64) * 977 % (top + 1)).astype(
+            dtype
+        ).reshape(24, 37)
+        p = str(tmp_path / "x.pgm")
+        write_pgm(p, arr)
+        img = read_pgm(p)
+        assert img.dtype == np.float32 and img.shape == (24, 37)
+        np.testing.assert_array_equal(img, arr.astype(np.float32))
+
+    def test_ascii_header_comment_and_16bit_byte_order(self, tmp_path):
+        from uwslam_tpu.io import read_pgm
+
+        p = tmp_path / "c.pgm"
+        p.write_bytes(b"P5\n# made by hand\n2 1\n65535\n\x01\x02\xff\x00")
+        np.testing.assert_array_equal(read_pgm(str(p)), [[258.0, 65280.0]])
+        q = tmp_path / "a.pgm"
+        q.write_bytes(b"P2\n3 1\n255\n0 7 255\n")
+        np.testing.assert_array_equal(read_pgm(str(q)), [[0.0, 7.0, 255.0]])
+
+    def test_dataset_decodes_pgm_without_native_or_pillow(
+        self, tmp_path, monkeypatch
+    ):
+        import builtins
+
+        from uwslam_tpu.io import dataset, write_pgm
+
+        arr = np.arange(6 * 5, dtype=np.uint8).reshape(6, 5)
+        write_pgm(str(tmp_path / "f.pgm"), arr)
+        monkeypatch.setattr(native, "available", lambda: False)
+        real_import = builtins.__import__
+
+        def no_pil(name, *a, **k):
+            if name == "PIL" or name.startswith("PIL."):
+                raise ImportError("no Pillow")
+            return real_import(name, *a, **k)
+
+        monkeypatch.setattr(builtins, "__import__", no_pil)
+        np.testing.assert_array_equal(
+            dataset._decode_image(str(tmp_path / "f.pgm")), arr
+        )
+        with pytest.raises(RuntimeError, match="native loader.*Pillow"):
+            dataset._decode_image(str(tmp_path / "f.png"))
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Distributed BA tests on the virtual 8-device CPU mesh.
 
-Validates the multi-chip sharding path without TPU hardware
+Validates the multi-chip sharding path without several GPUs
 (xla_force_host_platform_device_count=8 from conftest).
 """
 import jax

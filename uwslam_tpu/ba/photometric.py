@@ -3,7 +3,7 @@
 The reference *intended* exactly this: its commented-out Ceres scaffolding is
 a photometric cost (`ResidualIntensity`, /root/reference/include/Tracker.h:
 295-505) over SE(3) poses, never finished. This module supplies it for real,
-DSO-style and TPU-first (SURVEY.md §7 layer 7 "photometric/reprojection BA"):
+DSO-style, as batched arrays (SURVEY.md §7 layer 7 "photometric/reprojection BA"):
 
 - Each keyframe owns a fixed-capacity set of semi-dense points (pixel +
   inverse depth + reference intensity). Every point is photometrically
@@ -12,7 +12,7 @@ DSO-style and TPU-first (SURVEY.md §7 layer 7 "photometric/reprojection BA"):
   no sparse graphs, no scatter; XLA sees static shapes end to end.
 - One batched pass produces all residuals r = I_j(pi(X_j)) - I_i(x) and
   analytic Jacobians wrt both poses and inverse depths; sampling runs on the
-  MXU via the dense one-hot formulation (image.pyramid.bilinear_sample_dense).
+  dense one-hot formulation (image.pyramid.bilinear_sample_dense).
 - Inverse depths are scalars per point, so the landmark block Hdd is DIAGONAL
   and the Schur complement S = Hpp - Hpd Hdd^-1 Hpd^T is a couple of einsums
   — the textbook sparse-BA elimination becomes dense batched linear algebra.

@@ -3,7 +3,7 @@
 The reference *intended* BA — it links Ceres and ships commented-out
 ResidualIntensity/LocalParameterizationSE3 scaffolding
 (/root/reference/include/Tracker.h:295-505, src/Tracker.cpp:1742-1817) that
-was never finished. This module supplies it for real, TPU-first
+was never finished. This module supplies it for real, as batched arrays
 (SURVEY.md §7 layer 7):
 
 - Fixed-capacity observation table (obs -> (kf, lm, uv, valid)) instead of

@@ -1,4 +1,4 @@
-"""Camera models, calibration, and rectification (TPU-native CameraModel)."""
+"""Camera models, calibration, and rectification (the reference's CameraModel in JAX)."""
 from .calibration import Calibration, load, load_json, load_opencv_xml
 from .model import (
     PinholeCamera,

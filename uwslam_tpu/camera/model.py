@@ -3,7 +3,7 @@
 Capability parity with the reference CameraModel
 (/root/reference/src/CameraModel.cpp:30-108): loads OpenCV-FileStorage XML
 calibration, rescales normalized intrinsics, computes undistortion maps and a
-valid-pixel ROI — but TPU-first: the rectify map is computed once on device as
+valid-pixel ROI — but the rectify map is computed once on device as
 a dense (H, W, 2) coordinate grid, applied by bilinear gather inside jit, with
 no OpenCV dependency.
 
@@ -14,7 +14,6 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import partial
-from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -201,128 +200,6 @@ def undistort_map(
     src_u = xy_d[..., 0] * raw.fx + raw.cx
     src_v = xy_d[..., 1] * raw.fy + raw.cy
     return jnp.stack([src_u, src_v], axis=-1)
-
-
-class TwoPassRemap(NamedTuple):
-    """Static two-pass (Catmull-Smith) resampling plan for a fixed remap.
-
-    TPU gathers serialize per element — the 4-tap gather remap of a
-    752x480 frame measured ~16 ms/frame on v5e, the single largest op of
-    the rectified live path. Because the rectification map is STATIC and
-    smooth, the same resample factors into a vertical then a horizontal
-    pass, each expressible as a small stack of STATIC row/column shifts
-    (pure slices) with precomputed one-hot blend weights — no gathers, no
-    multi-hundred-MB one-hot constants; everything fuses into one VPU
-    pass (~0.5 ms).
-
-    Exactness: the vertical pass samples row Ṽ(v, u') = V(v, U⁻¹(v, u'))
-    so the horizontal pass reads map-consistent columns; the residual
-    difference vs true 2D bilinear is the vertical-map variation across
-    one source column (sub-0.05 px for radtan rectification — bounded by
-    the test in tests/test_camera_image.py). CPU keeps the exact gather
-    path (vectorized gathers are cheap there)."""
-
-    vtilde: jax.Array    # (H, W) f32 source row to sample per (v, u_src)
-    umap: jax.Array      # (H, W) f32 source column per output pixel
-    valid: jax.Array     # (H, W) bool static validity of the original map
-    vlo: int             # static bounds for s = floor(vtilde) - v
-    vhi: int
-    hlo: int             # static bounds for e = floor(umap) - u
-    hhi: int
-
-
-def build_two_pass_remap(
-    src_coords, src_width: int | None = None, src_height: int | None = None
-) -> TwoPassRemap | None:
-    """Precompute a TwoPassRemap from a dense (H_out, W_out, 2) [u, v]
-    source-coord map (host-side, once per calibration). The source image
-    may have different dimensions (src_width/src_height; default = output
-    dims). Returns None when the map's column coordinate is not strictly
-    increasing along rows (the per-row inverse would be ill-defined) —
-    callers then keep the gather remap."""
-    import numpy as _np
-
-    m = _np.asarray(src_coords, _np.float64)
-    U, V = m[..., 0], m[..., 1]
-    H_out, W_out = U.shape
-    W_in = int(src_width) if src_width is not None else W_out
-    H_in = int(src_height) if src_height is not None else H_out
-    if not (_np.diff(U, axis=1) > 0).all():
-        return None
-    valid = (U >= 0) & (U <= W_in - 1) & (V >= 0) & (V <= H_in - 1)
-    cols_out = _np.arange(W_out, dtype=_np.float64)
-    cols_in = _np.arange(W_in, dtype=_np.float64)
-    vt = _np.empty((H_out, W_in), _np.float64)
-    for v in range(H_out):
-        # g(u') = output column whose source column is u' (U[v] increasing);
-        # np.interp clamps beyond the map's edges, keeping vt bounded.
-        g = _np.interp(cols_in, U[v], cols_out)
-        vt[v] = _np.interp(g, cols_out, V[v])
-    vt = _np.clip(vt, 0.0, H_in - 1)
-    Uc = _np.clip(U, 0.0, W_in - 1)
-    s = _np.floor(vt) - _np.arange(H_out)[:, None]
-    e = _np.floor(Uc) - _np.arange(W_out)[None, :]
-    return TwoPassRemap(
-        vtilde=jnp.asarray(vt, jnp.float32),
-        umap=jnp.asarray(Uc, jnp.float32),
-        valid=jnp.asarray(valid),
-        vlo=int(s.min()), vhi=int(s.max()),
-        hlo=int(e.min()), hhi=int(e.max()),
-    )
-
-
-def _shifted_rows(img: jax.Array, s: int, n_out: int) -> jax.Array:
-    """(n_in, W) -> (n_out, W) where row v holds img[v + s] (zero-padded)."""
-    n_in = img.shape[0]
-    top = max(0, -s)
-    core = img[max(0, s): max(0, min(n_in, s + n_out))]
-    bot = max(0, n_out - top - core.shape[0])
-    return jnp.pad(core, ((top, bot), (0, 0)))[:n_out]
-
-
-def _shifted_cols(img: jax.Array, s: int, n_out: int) -> jax.Array:
-    """(H, n_in) -> (H, n_out) where column u holds img[:, u + s]."""
-    n_in = img.shape[1]
-    left = max(0, -s)
-    core = img[:, max(0, s): max(0, min(n_in, s + n_out))]
-    right = max(0, n_out - left - core.shape[1])
-    return jnp.pad(core, ((0, 0), (left, right)))[:, :n_out]
-
-
-def remap_two_pass(
-    image: jax.Array, rm: TwoPassRemap, fill: float = 0.0
-) -> jax.Array:
-    """Apply a TwoPassRemap: vertical shift-blend pass, then horizontal.
-
-    Each pass unrolls over the map's static shift range; every term is a
-    padded slice times an equality-masked blend weight — one big fused
-    elementwise program on the VPU, no gather ops."""
-    f = image.astype(jnp.float32)
-    H_out, W_in = rm.vtilde.shape
-    W_out = rm.umap.shape[1]
-
-    vt0 = jnp.floor(rm.vtilde)
-    fv = rm.vtilde - vt0
-    off_v = vt0 - jax.lax.broadcasted_iota(jnp.float32, (H_out, W_in), 0)
-    A = jnp.zeros((H_out, W_in), jnp.float32)
-    for sft in range(rm.vlo, rm.vhi + 2):
-        sh = _shifted_rows(f, sft, H_out)
-        w = jnp.where(off_v == sft, 1.0 - fv, 0.0) + jnp.where(
-            off_v == sft - 1, fv, 0.0
-        )
-        A = A + w * sh
-
-    u0 = jnp.floor(rm.umap)
-    fu = rm.umap - u0
-    off_u = u0 - jax.lax.broadcasted_iota(jnp.float32, (H_out, W_out), 1)
-    out = jnp.zeros((H_out, W_out), jnp.float32)
-    for sft in range(rm.hlo, rm.hhi + 2):
-        sh = _shifted_cols(A, sft, W_out)
-        w = jnp.where(off_u == sft, 1.0 - fu, 0.0) + jnp.where(
-            off_u == sft - 1, fu, 0.0
-        )
-        out = out + w * sh
-    return jnp.where(rm.valid, out, fill)
 
 
 @partial(jax.jit, static_argnames=("fill",))

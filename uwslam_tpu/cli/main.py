@@ -23,7 +23,7 @@ import time
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="uwslam-tpu",
-        description="TPU-native monocular SLAM (uw-slam capability surface)",
+        description="Monocular SLAM in JAX (uw-slam capability surface)",
     )
     p.add_argument("-d", "--directory", required=True,
                    help="directory of input images")
@@ -65,7 +65,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="end-of-run GLOBAL distributed bundle adjustment: "
                         "landmarks partitioned over every available device "
                         "(jax.sharding.Mesh), Schur pose blocks psum-reduced "
-                        "over ICI (BASELINE config 5); implies --features")
+                        "across devices (BASELINE config 5); implies "
+                        "--features")
     p.add_argument("--mono-depth", type=float, default=1.0,
                    help="assumed scene depth for pure-mono tracking")
     p.add_argument("--reference-mode", action="store_true",
@@ -137,7 +138,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--track-mode", choices=("fc", "ic"), default="fc",
                    help="photometric LM flavor: forward-compositional or "
                         "inverse-compositional (constant reference Jacobian; "
-                        "~20%% faster on TPU)")
+                        "samples one channel per iteration instead of three)")
     p.add_argument("--affine", action="store_true",
                    help="jointly estimate affine brightness (a, b) per frame "
                         "pair — for scenes violating brightness constancy "
@@ -155,20 +156,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "only (no keyframes/BA/loop closure)")
     p.add_argument("--chunk", type=int, default=64,
                    help="frames per device batch in --offline mode")
-    p.add_argument("--platform", default=None, choices=("cpu", "tpu"),
+    p.add_argument("--platform", default=None, choices=("cpu", "gpu"),
                    help="force the jax platform (before backend init)")
     p.add_argument("--host-devices", type=int, default=None,
                    help="with --platform cpu: number of virtual host "
                         "devices (XLA_FLAGS --xla_force_host_platform_"
-                        "device_count) — the multi-chip simulation target "
-                        "for --dist-ba without TPU pod hardware")
+                        "device_count) — the multi-device simulation target "
+                        "for --dist-ba without several GPUs")
     return p
 
 
 def run_offline(args, system, config, seq) -> int:
     """Offline odometry: the dataset as chunks of one big device program.
 
-    The TPU-native answer to the reference's strictly sequential frame loop
+    The data-parallel answer to the reference's strictly sequential frame loop
     (src/main_uw_slam.cpp:139-151): ingest is vmapped over frames and the
     coarse-to-fine LM runs vmapped over all adjacent pairs
     (tracking.track_sequence_batched). Chunks overlap by one frame so

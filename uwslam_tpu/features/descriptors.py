@@ -1,11 +1,11 @@
 """Patch descriptors: normalized intensity patches projected to a compact code.
 
-TPU-native replacement for SURF/ORB descriptors (reference
+Array replacement for SURF/ORB descriptors (reference
 /root/reference/src/Tracker.cpp:195-223): each keypoint gets a (P*P) patch
 sampled bilinearly at its detection scale, photometrically normalized
 (zero-mean / unit-norm => invariant to affine lighting), then projected by a
 fixed random Gaussian matrix to D dims (a Johnson-Lindenstrauss sketch — the
-projection is one (K, P^2) x (P^2, D) matmul on the MXU). Matching is then a
+projection is one (K, P^2) x (P^2, D) matmul). Matching is then a
 single (K, D) x (D, K) matmul; see match.py.
 
 No rotation invariance — like the reference's tracking use-case (sequential
@@ -19,7 +19,7 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
-from ..image.pyramid import bilinear_sample_auto
+from ..image.pyramid import bilinear_sample
 
 PATCH = 8          # patch side length (samples)
 PATCH_SPACING = 2.0  # sample spacing in pixels at the detection level
@@ -57,10 +57,7 @@ def describe(
     for l, img in enumerate(image_pyr):
         uv_l = uv / (1 << l)
         coords = (uv_l[:, None, :] + offsets[None, :, :]).reshape(-1, 2)
-        # bilinear_sample_auto: one-hot MXU sampling on TPU (the per-patch
-        # gathers were ~3.5 ms/frame of serialized loads in the boot
-        # megastep), 4-tap gather on CPU.
-        vals_f, inb_f = bilinear_sample_auto(img, coords)
+        vals_f, inb_f = bilinear_sample(img, coords)
         vals = vals_f.reshape(K, patch * patch)
         inb = inb_f.reshape(K, patch * patch)
         sel = level == l

@@ -2,8 +2,8 @@
 
 Capability replacement for the reference's GPU SURF/ORB detection
 (/root/reference/src/Tracker.cpp:187-223). SURF is patented and both are
-gather/scatter-irregular; the TPU-native design uses convolutional corner
-responses (pure XLA convs on the VPU/MXU) + max-pool NMS + top-K selection so
+gather/scatter-irregular; this design uses convolutional corner
+responses (pure XLA convs) + max-pool NMS + top-K selection so
 every shape is static (SURVEY.md §7 layer 5: "FAST/Harris-style corner scoring
 ... masked" design).
 

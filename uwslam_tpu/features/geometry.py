@@ -14,12 +14,11 @@ import jax.numpy as jnp
 
 from ..lie import se3
 from ..utils.precision import HIGHEST
-from ..utils.linalg import cholesky_solve_unrolled, svd3
 
 
 def decompose_essential(E: jax.Array):
     """E -> four candidate (R, t) pairs. t is unit-norm (monocular scale)."""
-    U, _, Vt = svd3(E)
+    U, _, Vt = jnp.linalg.svd(E)
     # Ensure proper rotations.
     U = U * jnp.sign(jnp.linalg.det(U))
     Vt = Vt * jnp.sign(jnp.linalg.det(Vt))
@@ -50,34 +49,10 @@ def triangulate_linear(
                 xb[1] * Pb[2] - Pb[1],
             ]
         )  # (4, 4)
-        # Inhomogeneous DLT: fix X = [x, y, z, 1] and solve the 3x3 normal
-        # equations by unrolled Cholesky (utils.linalg) — deterministic,
-        # fully fusable, no eigenproblem. The homogeneous eigh route lowers
-        # to the unfusable EighTpu custom call (~2.2 ms/frame for the 768
-        # vmapped triangulations in the boot megastep), and a fused
-        # inverse-iteration replacement proved selection-chaotic on
-        # near-degenerate low-parallax points. Points at infinity make A
-        # singular here; the ridge turns them into huge depths that the
-        # callers' max_depth gates already reject.
-        import jax as _jax
-
-        if _jax.default_backend() == "cpu":
-            # CPU: LAPACK homogeneous DLT (cheap there; preserves the
-            # reference semantics the CPU-mesh configs were tuned on).
-            AtA4 = jnp.einsum("mi,mj->ij", rows, rows, precision=HIGHEST)
-            _, Vh = jnp.linalg.eigh(AtA4)
-            Xh = Vh[:, 0]
-            return Xh[:3] / jnp.where(
-                jnp.abs(Xh[3]) < 1e-12, 1e-12, Xh[3]
-            )
-        A3 = rows[:, :3]
-        b3 = rows[:, 3]
-        AtA = jnp.einsum("mi,mj->ij", A3, A3, precision=HIGHEST)
-        Atb = jnp.einsum("mi,m->i", A3, b3, precision=HIGHEST)
-        ridge = 1e-9 * jnp.trace(AtA) + 1e-12
-        return cholesky_solve_unrolled(
-            AtA + ridge * jnp.eye(3, dtype=AtA.dtype), -Atb
-        )
+        # Homogeneous DLT: the null vector of the (4, 4) rows by eigh.
+        AtA4 = jnp.einsum("mi,mj->ij", rows, rows, precision=HIGHEST)
+        Xh = jnp.linalg.eigh(AtA4)[1][:, 0]
+        return Xh[:3] / jnp.where(jnp.abs(Xh[3]) < 1e-12, 1e-12, Xh[3])
 
     return jax.vmap(tri_one)(xy_a, xy_b)
 

@@ -3,7 +3,7 @@
 Mirrors the reference RobustMatcher's pipeline
 (/root/reference/src/Tracker.cpp:171-247):
 - BF kNN(k=2) in both directions (:199-200,221-222)  -> one (K,D)x(D,K) matmul
-  + two top-2 reductions (the MXU replaces the CUDA BFMatcher)
+  + two top-2 reductions (one matmul replaces the CUDA BFMatcher)
 - ratio test 0.65 in each direction (:52-71, threshold include/Tracker.h:80)
 - symmetry (mutual-consistency) test (:74-101)
 RANSAC geometric verification lives in ransac.py.

@@ -2,7 +2,7 @@
 
 The reference has no relocalization at all — a diverged Gauss-Newton just
 writes a bad pose (SURVEY.md §5 "Tracking failure is not even detected").
-This module supplies the missing capability TPU-first: a fixed batch of
+This module supplies the missing capability as batched arrays: a fixed batch of
 minimal DLT hypotheses evaluated with vmap, MSAC scoring, and a robust
 Gauss-Newton polish on SE(3) — the same static-shape RANSAC shape as
 features.ransac.
@@ -20,12 +20,7 @@ import jax.numpy as jnp
 
 from ..lie import se3
 from ..utils.precision import HIGHEST
-from ..utils.linalg import (
-    cholesky_solve_unrolled,
-    smallest_eigvec_spd,
-    svd3,
-    sym3_eigh,
-)
+from ..utils.linalg import cholesky_solve_unrolled, smallest_eigvec_spd
 
 
 class PnPResult(NamedTuple):
@@ -45,14 +40,12 @@ def _dlt_pose(p3d: jax.Array, xy: jax.Array, w: jax.Array):
     rows_v = jnp.concatenate([zero, X, -y * X], axis=-1)
     A = jnp.concatenate([rows_u * w[:, None], rows_v * w[:, None]], axis=0)
     AtA = jnp.einsum("mi,mj->ij", A, A, precision=HIGHEST)
-    # Fusable null-vector extraction (utils.linalg) — jnp.linalg.eigh
-    # lowers to the unfusable EighTpu custom call.
     P = smallest_eigvec_spd(AtA).reshape(3, 4)
     # Resolve the null vector's arbitrary global sign by cheirality BEFORE
     # factorization: with P = -sigma*R the "nearest rotation" problem is
     # DEGENERATE (det < 0 with equal singular values has a continuum of
     # minimizers), so U diag(1,1,-1) V^T depends on the SVD's internal
-    # basis choice — LAPACK's happened to work, the fused svd3's didn't.
+    # basis choice.
     # With the sign fixed the factorization is continuous and unique.
     depth = p3d @ P[2, :3] + P[2, 3]
     s_z = jnp.sum(jnp.where(w > 0, jnp.sign(depth), 0.0))
@@ -60,7 +53,7 @@ def _dlt_pose(p3d: jax.Array, xy: jax.Array, w: jax.Array):
     M, m = P[:, :3], P[:, 3]
     # Nearest rotation: R = U Vt; scale from singular values; cheirality by
     # requiring positive mean depth over the (weighted) points.
-    U, S, Vt = svd3(M)
+    U, S, Vt = jnp.linalg.svd(M)
     d = jnp.sign(jnp.linalg.det(U @ Vt))
     R = U @ jnp.diag(jnp.array([1.0, 1.0, 1.0]) * jnp.array([1.0, 1.0, d])) @ Vt
     scale = jnp.mean(S) * d
@@ -70,7 +63,7 @@ def _dlt_pose(p3d: jax.Array, xy: jax.Array, w: jax.Array):
     R = jnp.where(flip, -R, R)  # (-R, -t) also satisfies the DLT equations
     t = jnp.where(flip, -t, t)
     # -R is not a rotation (det=-1): re-project onto SO(3).
-    Ur, _, Vtr = svd3(R)
+    Ur, _, Vtr = jnp.linalg.svd(R)
     Dr = jnp.diag(jnp.array([1.0, 1.0, jnp.sign(jnp.linalg.det(Ur @ Vtr))]))
     R = Ur @ Dr @ Vtr
     return se3.from_rotation_translation(R, t)
@@ -89,7 +82,7 @@ def _planar_poses(p3d: jax.Array, xy: jax.Array):
     c = p3d.mean(axis=0)
     Q = p3d - c
     C = jnp.einsum("mi,mj->ij", Q, Q, precision=HIGHEST)
-    _, V = sym3_eigh(C)
+    _, V = jnp.linalg.eigh(C)
     e1, e2 = V[:, 2], V[:, 1]        # in-plane basis (largest variance)
     uv_pl = jnp.stack([Q @ e1, Q @ e2], axis=-1)  # (M, 2) plane coords
 
@@ -110,7 +103,7 @@ def _planar_poses(p3d: jax.Array, xy: jax.Array):
         t_pl = lam * H[:, 2]
         # Orthogonalize [r1 r2 r1xr2] -> nearest rotation.
         Rp = jnp.stack([r1, r2, jnp.cross(r1, r2)], axis=-1)
-        U, _, Vt = svd3(Rp)
+        U, _, Vt = jnp.linalg.svd(Rp)
         D = jnp.diag(
             jnp.array([1.0, 1.0, jnp.sign(jnp.linalg.det(U @ Vt))])
         )

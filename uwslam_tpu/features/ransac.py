@@ -3,7 +3,7 @@
 Mirrors the reference's geometric verification
 (/root/reference/src/Tracker.cpp:105-169: findFundamentalMat RANSAC, distance
 3.0 px, confidence 0.99, optional 8-point refit on inliers) and the standalone
-five-point essential pipeline (src/feature_detector.cpp:262-269) — TPU-first:
+five-point essential pipeline (src/feature_detector.cpp:262-269) — batched:
 
 - a FIXED batch of hypotheses evaluated in parallel with vmap (no sequential
   adaptive termination: the hypothesis batch is sized for the 0.99-confidence
@@ -23,12 +23,7 @@ import jax.numpy as jnp
 
 from ..lie import so3
 from ..utils.precision import HIGHEST
-from ..utils.linalg import (
-    cholesky_solve_unrolled,
-    smallest_eigvec_spd,
-    svd3,
-    sym3_eigh,
-)
+from ..utils.linalg import cholesky_solve_unrolled, smallest_eigvec_spd
 
 RANSAC_THRESH_PX = 3.0   # reference src/Tracker.cpp:150
 NUM_HYPOTHESES = 256     # > log(1-0.99)/log(1-0.5^8) ≈ 1177 for 50% outliers;
@@ -71,16 +66,14 @@ def _eight_point(pa: jax.Array, pb: jax.Array, w: jax.Array) -> jax.Array:
     A = jnp.stack(
         [xb * xa, xb * ya, xb, yb * xa, yb * ya, yb, xa, ya, one], axis=-1
     ) * w[:, None]
-    # min |Af|: eigenvector of A^T A with smallest eigenvalue. Inverse-power
-    # iteration instead of jnp.linalg.eigh — the EighTpu custom call cannot
-    # fuse and cost ~3.8 ms/frame for the 256 vmapped hypotheses (utils.linalg).
+    # min |Af|: eigenvector of A^T A with smallest eigenvalue.
     AtA = jnp.einsum("mi,mj->ij", A, A, precision=HIGHEST)
     f = smallest_eigvec_spd(AtA)
     F = f.reshape(3, 3)
     # Rank-2 enforcement WITHOUT an SVD: F = U S V^T => F v3 = s3 u3, so
     # dropping the smallest singular value is F (I - v3 v3^T) with v3 the
-    # smallest eigenvector of F^T F (closed form for symmetric 3x3).
-    _, Vf = sym3_eigh(jnp.einsum("ji,jk->ik", F, F, precision=HIGHEST))
+    # smallest eigenvector of F^T F.
+    _, Vf = jnp.linalg.eigh(jnp.einsum("ji,jk->ik", F, F, precision=HIGHEST))
     v3 = Vf[:, 0]
     return F - jnp.outer(F @ v3, v3)
 
@@ -99,7 +92,7 @@ def sampson_distance(F: jax.Array, uv_a: jax.Array, uv_b: jax.Array):
 
 def _project_essential(F: jax.Array) -> jax.Array:
     """Project onto the essential manifold: singular values -> (s, s, 0)."""
-    U, S, Vt = svd3(F)
+    U, S, Vt = jnp.linalg.svd(F)
     s = 0.5 * (S[0] + S[1])
     return (U * jnp.array([s, s, 0.0])[None, :]) @ Vt
 
@@ -107,7 +100,7 @@ def _project_essential(F: jax.Array) -> jax.Array:
 def _decompose_rt(E: jax.Array):
     """One (R, t) with [t]x R proportional to E (Sampson is sign-invariant,
     so any of the four decompositions parameterizes the same manifold point)."""
-    U, _, Vt = svd3(E)
+    U, _, Vt = jnp.linalg.svd(E)
     U = U * jnp.sign(jnp.linalg.det(U))
     Vt = Vt * jnp.sign(jnp.linalg.det(Vt))
     W = jnp.array([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]])
@@ -129,7 +122,7 @@ def _gn_polish_essential(
     The 8-point + singular-value-projection pipeline is not a descent method
     on geometric error and fails on near-planar scenes (the reason Nister's
     5-point exists); a batched manifold GN from several starts is the
-    TPU-idiomatic substitute: tiny dense solves, static shapes, vmappable."""
+    array substitute: tiny dense solves, static shapes, vmappable."""
     ones = jnp.ones_like(xy_a[:, :1])
     ha = jnp.concatenate([xy_a, ones], axis=-1)
     hb = jnp.concatenate([xy_b, ones], axis=-1)
@@ -178,9 +171,8 @@ def _gn_polish_essential(
         wrob = vw * jnp.where(d < t2, 1.0 / (1.0 + d / t2), 0.0)
         A = jnp.einsum("ki,k,kj->ij", J, wrob, J, precision=HIGHEST)
         g = jnp.einsum("ki,k->i", J, wrob * r, precision=HIGHEST)
-        # Unrolled Cholesky (utils.linalg): jnp.linalg.solve on this 5x5
-        # GN normal matrix lowered to an unfusable TPU custom call (~3.8
-        # ms/frame across the vmapped hypotheses). A + ridge is SPD.
+        # Unrolled Cholesky (utils.linalg): elementwise math that fuses
+        # across the vmapped hypotheses. A + ridge is SPD.
         delta = -cholesky_solve_unrolled(
             A + 1e-8 * jnp.eye(5) + 1e-10 * jnp.trace(A) * jnp.eye(5), g
         )
@@ -293,7 +285,7 @@ def _ransac_core(
         # model, then keep the best final score.
         Rs, ts = jax.vmap(_decompose_rt)(F_ref)
         jbest = jnp.argmax(-score_ref)
-        U, _, Vt = svd3(F_ref[jbest])
+        U, _, Vt = jnp.linalg.svd(F_ref[jbest])
         U = U * jnp.sign(jnp.linalg.det(U))
         Vt = Vt * jnp.sign(jnp.linalg.det(Vt))
         W = jnp.array([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]])
@@ -368,7 +360,7 @@ def essential_ransac(
     8-point solve + per-hypothesis projection onto the essential manifold
     (the reference's five-point cv::findEssentialMat at
     src/feature_detector.cpp:262-265 serves the same role; 8-point on
-    normalized coords is SVD-batched and TPU-regular)."""
+    normalized coords is SVD-batched and shape-static)."""
     return _ransac_core(
         xy_a, xy_b, valid, key, threshold_norm, num_hypotheses, min_inliers,
         essential=True,

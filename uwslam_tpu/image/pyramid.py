@@ -6,10 +6,10 @@ Capability parity with the reference's frame ingest + gradient pass:
 - Scharr x/y gradients + abs-weighted magnitude per level
   (/root/reference/src/Tracker.cpp:1127-1142)
 
-TPU-first design: the whole pyramid + all gradients are produced by ONE jitted
-function of the level-0 image; levels are a tuple of static-shape arrays so XLA
-fuses the downsample/convolution chain, and everything stays device-resident
-(the reference re-uploads to the GPU every frame, src/Tracker.cpp:179-180).
+The whole pyramid + all gradients are produced by ONE jitted function of the
+level-0 image; levels are a tuple of static-shape arrays so XLA fuses the
+downsample/convolution chain, and everything stays device-resident (the
+reference re-uploads to the GPU every frame, src/Tracker.cpp:179-180).
 
 Images are float32 (H, W) in [0, 255] to keep residual scales comparable with
 the reference's uint8 math.
@@ -21,6 +21,8 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
+
+from .. import platform
 
 PYRAMID_LEVELS = 5  # reference: src/Options.cpp:26
 
@@ -47,8 +49,8 @@ def downsample2x(image: jax.Array) -> jax.Array:
 
 
 # Scharr is separable: [-3 0 3; -10 0 10; -3 0 3] = [3 10 3]^T x [-1 0 1].
-# Implemented as padded slicing (pure VPU adds/muls — measured ~2x faster on
-# v5e than conv_general_dilated for single-channel images). Normalized by 1/32
+# Implemented as padded slicing (elementwise adds/muls that XLA fuses into
+# one loop). Normalized by 1/32
 # so gradient units are intensity/pixel (cv::Scharr is unnormalized; the
 # reference only uses relative magnitudes, so this is documented, not
 # behavioral).
@@ -78,9 +80,8 @@ def scharr_gradients(image: jax.Array) -> tuple[jax.Array, jax.Array]:
     """Scharr x/y derivatives of one level (reference src/Tracker.cpp:1133-1138).
 
     Direct 9-tap form off ONE edge-padded buffer (both gradients share every
-    tap load, and XLA fuses the whole thing into a single elementwise pass):
-    measured 1.87 vs 2.63 ms for the single-frame 3-level pyramid on v5e
-    against the two-stage separable form, bit-identical to 2e-5."""
+    tap load, and XLA fuses the whole thing into a single elementwise
+    pass)."""
     p = jnp.pad(image, ((1, 1), (1, 1)), mode="edge")
     a = p[:-2, :-2]
     b = p[:-2, 1:-1]
@@ -117,30 +118,32 @@ def build_pyramid(image: jax.Array, levels: int = PYRAMID_LEVELS) -> FramePyrami
     )
 
 
+def _scharr_batched(images: jax.Array):
+    """(B, H, W) -> (gx, gy, 0.5(|gx| + |gy|)) through XLA."""
+    gx, gy = jax.vmap(scharr_gradients)(images)
+    return gx, gy, 0.5 * jnp.abs(gx) + 0.5 * jnp.abs(gy)
+
+
 @partial(jax.jit, static_argnames=("levels",))
 def build_pyramid_batched(
     images: jax.Array, levels: int = PYRAMID_LEVELS
 ) -> FramePyramid:
     """Batched pyramid build: (B, H, W) -> FramePyramid of (B, H_l, W_l)
-    levels. On TPU with a real batch, the per-level gradient pass runs the
-    fused Pallas kernel (ops.pallas_pyramid: one VMEM-resident pass per
-    frame produces gx/gy/|g|; 6.55 -> 4.31 ms for the 5-level b96 chunk,
-    bit-exact); otherwise identical math to vmap(build_pyramid)."""
-    from ..ops.pallas_pyramid import scharr_gradients_batched, use_pallas_scharr
+    levels; identical math to vmap(build_pyramid). The GPU's gradient pass
+    is the Pallas Triton kernel ops/scharr.py: on an H100 it runs level 0
+    of the 96x480x640 chunk in 0.20 ms against XLA's 0.64 ms and the
+    offline chunk 15% faster (PERF.md); the CPU has no Triton."""
+    from ..ops.scharr import scharr_gradients_batched
 
-    B = images.shape[0]
     imgs = [images]
     for _ in range(levels - 1):
         b, h, w = imgs[-1].shape
         imgs.append(imgs[-1].reshape(b, h // 2, 2, w // 2, 2).mean(axis=(2, 4)))
     gxs, gys, gms = [], [], []
     for im in imgs:
-        _, H, W = im.shape
-        if use_pallas_scharr(B, H, W):
-            gx, gy, gm = scharr_gradients_batched(im)
-        else:
-            gx, gy = jax.vmap(scharr_gradients)(im)
-            gm = 0.5 * jnp.abs(gx) + 0.5 * jnp.abs(gy)
+        gx, gy, gm = platform.choose(
+            _scharr_batched, scharr_gradients_batched, im
+        )
         gxs.append(gx)
         gys.append(gy)
         gms.append(gm)
@@ -171,18 +174,17 @@ def build_depth_pyramid(depth: jax.Array, levels: int = PYRAMID_LEVELS):
     return tuple(depths)
 
 
-def bilinear_sample_dense(images: jax.Array, uv: jax.Array, precision=None):
-    """Bilinear sampling as two dense matmuls — the MXU replacement for
-    scattered gathers (TPU gathers serialize; a one-hot contraction runs at
-    matrix-unit speed).
+def bilinear_sample_dense(images: jax.Array, uv: jax.Array):
+    """Bilinear sampling as two dense one-hot contractions.
 
     images: (C, H, W) channel stack; uv: (N, 2). Returns ((C, N), valid (N,)).
 
     sample[c, n] = sum_h sum_w Wv[n, h] * images[c, h, w] * Wu[n, w]
-    where Wv/Wu have the two bilinear taps per row. Cost O(N*H*W) MACs —
-    dominated by the (N, H) x (C, H, W) contraction, which XLA maps onto the
-    MXU; for 2048 points on 640x480 this is ~0.6 GMAC/channel, microseconds
-    on a v5e. Out-of-bounds rows produce all-zero weights (fill = 0).
+    where Wv/Wu have the two bilinear taps per row. Cost O(N*H*W) MACs, so
+    point tracking uses the 4-tap gather (`sample_stack`, 5x faster on an
+    H100, PERF.md); photometric BA keeps this form. Out-of-bounds rows
+    produce all-zero weights (fill = 0). Both contractions run at HIGHEST
+    precision: full f32, no TF32 rounding on the GPU.
     """
     C, H, W = images.shape
     u, v = uv[..., 0], uv[..., 1]
@@ -195,63 +197,21 @@ def bilinear_sample_dense(images: jax.Array, uv: jax.Array, precision=None):
     # Two taps per row: weight (1-dv) at v0, dv at v0+1 (same for u).
     Wv = (rows == v0[:, None]) * (1.0 - dv) + (rows == v0[:, None] + 1.0) * dv
     Wu = (cols == u0[:, None]) * (1.0 - du) + (cols == u0[:, None] + 1.0) * du
-    # The heavy (N, H) x (C, H, W) contraction runs on the MXU; bf16
-    # operands with f32 accumulation double its peak there. Round-4
-    # re-measurement (IC offline chunk, head-to-head in one session):
-    # 2856 -> 3168 fps at IDENTICAL ATE to 5 decimals — the bf16
-    # quantization of one-hot weights (exactly representable) and [0,255]
-    # intensities (~0.25 ADU, far under the sensor noise) does not move the
-    # pose. Callers that sample value-critical data (16-bit depth) pass an
-    # explicit precision and keep the f32 path; UWSLAM_SAMPLE_F32=1 forces
-    # it globally. (An earlier round measured bf16 as a wash on the FC
-    # 3-channel path and worse accuracy with bf16 GRADIENTS feeding J;
-    # FC's residuals_and_jacobian therefore passes precision=HIGHEST so its
-    # gradient channels never take this branch — only IC's intensity-only
-    # sampling and gradient-free callers narrow to bf16.)
-    import os as _os
-
-    if (
-        precision is None
-        and jax.default_backend() == "tpu"
-        and not _os.environ.get("UWSLAM_SAMPLE_F32")
-    ):
-        S = jnp.einsum(
-            "nh,chw->cnw",
-            Wv.astype(jnp.bfloat16),
-            images.astype(jnp.bfloat16),
-            preferred_element_type=jnp.float32,
-        )
-    else:
-        S = jnp.einsum("nh,chw->cnw", Wv, images,
-                       preferred_element_type=jnp.float32,
-                       precision=precision)
+    hi = jax.lax.Precision.HIGHEST
+    S = jnp.einsum("nh,chw->cnw", Wv, images,
+                   preferred_element_type=jnp.float32, precision=hi)
     out = jnp.einsum("cnw,nw->cn", S, Wu,
-                     preferred_element_type=jnp.float32, precision=precision)
+                     preferred_element_type=jnp.float32, precision=hi)
     valid = (u >= 0) & (u <= W - 1) & (v >= 0) & (v <= H - 1)
     return jnp.where(valid[None, :], out, 0.0), valid
 
 
-def bilinear_sample_auto(
-    image: jax.Array, uv: jax.Array, fill: float = 0.0, precision=None
-):
-    """Backend-dispatching bilinear sampling for (N, 2) point sets.
-
-    On TPU, scattered point gathers serialize badly — measured 16.6 ms for
-    96x2048 batched bilinear gathers on v5e where the dense one-hot matmul
-    formulation takes 0.78 ms (21x) — so this routes to
-    `bilinear_sample_dense`. On CPU the O(N*H*W) contraction would be the
-    disaster instead, so the 4-tap gather stays. Pass
-    precision=jax.lax.Precision.HIGHEST for data where bf16 MXU truncation
-    of the *values* matters (e.g. 16-bit depth maps); intensity tracking is
-    robust to it.
-    """
-    if jax.default_backend() == "cpu" or uv.ndim != 2:
-        return bilinear_sample(image, uv, fill=fill)
-    out, valid = bilinear_sample_dense(image[None], uv, precision=precision)
-    out = out[0]
-    if fill != 0.0:
-        out = jnp.where(valid, out, fill)
-    return out, valid
+def sample_stack(images: jax.Array, uv: jax.Array):
+    """Bilinear sampling of a (C, H, W) stack at (N, 2) points: one 4-tap
+    gather per channel. Returns ((C, N) samples, zero outside, and (N,)
+    in-window validity)."""
+    chans = [bilinear_sample(images[c], uv) for c in range(images.shape[0])]
+    return jnp.stack([c[0] for c in chans]), chans[0][1]
 
 
 def bilinear_sample(image: jax.Array, uv: jax.Array, fill: float = 0.0):

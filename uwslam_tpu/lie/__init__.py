@@ -1,6 +1,6 @@
 """Pure-JAX Lie groups: SO(3), SE(3), Sim(3).
 
-TPU-native replacement for the reference's vendored Sophus
+JAX replacement for the reference's vendored Sophus
 (/root/reference/thirdparty/sophus/, typedef'd at include/Options.h:128-130).
 """
 from . import se3, sim3, so3

@@ -3,9 +3,9 @@
 Capability parity with Sophus SE3 as used by the reference tracker
 (/root/reference/thirdparty/sophus/se3.hpp:201,285,723 — exp/log/matrix/
 inverse/operator*; pose update T <- T * exp(delta) at
-/root/reference/src/Tracker.cpp:849), re-designed TPU-first:
+/root/reference/src/Tracker.cpp:849), re-designed for batched arrays:
 
-- Transforms are (..., 4, 4) homogeneous matrices; compose = matmul (MXU).
+- Transforms are (..., 4, 4) homogeneous matrices; compose = matmul.
 - Twists are (..., 6) arrays ordered [v(3), w(3)] (translation first, matching
   the reference's Jacobian column order at src/Tracker.cpp:455-467).
 - exp/log share the Taylor-guarded SO(3) kernels, safe under jit and vmap.

@@ -2,8 +2,8 @@
 
 Capability parity with the vendored Sophus SO3 used by the reference
 (/root/reference/thirdparty/sophus/so3.hpp: exp/log/inverse/matrix/Adj), but
-re-designed TPU-first: rotations are stored as 3x3 matrices (compose = matmul,
-MXU-friendly), exp/log use Taylor-guarded closed forms so they are batchable,
+re-designed for batched arrays: rotations are stored as 3x3 matrices
+(compose = matmul), exp/log use Taylor-guarded closed forms so they are batchable,
 differentiable, and NaN-free under jit at theta -> 0 and theta -> pi.
 
 All functions broadcast over arbitrary leading batch dimensions.
@@ -157,7 +157,7 @@ def inverse(R: jax.Array) -> jax.Array:
 
 
 def compose(Ra: jax.Array, Rb: jax.Array) -> jax.Array:
-    """Composition Ra * Rb (matmul on the MXU)."""
+    """Composition Ra * Rb (matmul)."""
     return _mm(Ra, Rb)
 
 

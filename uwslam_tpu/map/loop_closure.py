@@ -2,7 +2,7 @@
 
 The reference has no loop closure (its Sim3 typedef at
 /root/reference/include/Options.h:130 signals the intent, never realized;
-SURVEY.md §5). This module supplies it TPU-first:
+SURVEY.md §5). This module supplies it as batched arrays:
 
 - every keyframe leaves a lightweight record (pose, keypoints, descriptors,
   camera-frame 3D) — pyramids are NOT retained, so history is cheap;
@@ -10,7 +10,7 @@ SURVEY.md §5). This module supplies it TPU-first:
   (k-means vocabulary over the session's own keypoint descriptors, residual
   aggregation per visual word, intra+global L2 normalization) — far more
   discriminative than mean pooling (two rooms with similar texture
-  statistics no longer collide) while retrieval stays one MXU op;
+  statistics no longer collide) while retrieval stays one matmul;
   mean-pooling remains the cold-start fallback until enough descriptors
   accumulate to train the vocabulary;
 - verification is descriptor matching + PnP RANSAC (features.pnp), giving a

@@ -3,7 +3,7 @@
 Capability parity with the reference's standalone feature_detector binary
 (/root/reference/src/feature_detector.cpp:16-309: GPU SURF/ORB + kNN ->
 findEssentialMat (five-point RANSAC) -> recoverPose -> integrate translation ->
-triangulatePoints), re-built TPU-first: Harris detection + patch descriptors +
+triangulatePoints), re-built as batched arrays: Harris detection + patch descriptors +
 matmul matching + vmapped 8-point essential RANSAC + cheirality pose recovery,
 one jitted program per frame pair.
 """

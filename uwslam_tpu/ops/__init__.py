@@ -1,4 +1,1 @@
-"""Pallas TPU kernels for the hot ops."""
-from .pallas_sample import pallas_bilinear_sample
-
-__all__ = ["pallas_bilinear_sample"]
+"""Hand-written GPU kernels (Pallas through Triton)."""

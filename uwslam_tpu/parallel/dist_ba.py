@@ -9,7 +9,7 @@ Design (scaling-book style):
   per-landmark observation load (LPT assignment in shard_problem); keyframe
   poses are replicated.
 - each device builds its local V/W/g_l blocks and partial U/g_p;
-- one psum per LM iteration reduces {U, g_p, S_red, rhs_red, cost} over ICI;
+- one psum per LM iteration reduces {U, g_p, S_red, rhs_red, cost} across devices;
   the reduced (6M x 6M) camera system is assembled and dense-solved on SHARD
   0 only and the (M, 6) solution broadcast with a second psum (the other
   shards would idle at that barrier anyway; replicating the O(M^3) solve was
@@ -207,7 +207,7 @@ def distributed_bundle_adjust(
         from O(L_local*M^2 + M^3) to O(L_local*M*cg_steps). Measured on
         the 8-virtual-device CPU mesh the per-CG-step collectives LOSE to
         direct (collective latency dominates there); it is the right shape
-        when comm is bandwidth-bound (large M over real ICI/DCN).
+        when comm is bandwidth-bound (large M over real interconnects).
       - "auto": direct — with the solve-on-shard-0 fix it is the measured
         best on every width this rig can test; pcg stays opt-in.
 
@@ -265,7 +265,7 @@ def distributed_bundle_adjust(
                 s.T_cw, s.points, obs_kf, obs_lm_local, obs_uv, obs_valid,
                 cam, huber_delta, M, L_local,
             )
-            # Replicate pose-side quantities over ICI.
+            # Replicate pose-side quantities across devices.
             U = jax.lax.psum(U_p, AXIS)
             g_p = jax.lax.psum(g_p_p, AXIS)
             if pose_prior_weight > 0.0:
@@ -346,7 +346,7 @@ def distributed_bundle_adjust(
                     s_l = jnp.einsum(
                         "lmac,lc->ma", WVinv, u, precision=HIGHEST
                     )
-                    # ONE (M, 6) psum per CG step rides ICI.
+                    # ONE (M, 6) psum per CG step.
                     y = y - jax.lax.psum(s_l, AXIS)
                     return y * mask[:, None]
 
@@ -387,7 +387,7 @@ def distributed_bundle_adjust(
                 rhs_red_p = jnp.einsum(
                     "lmac,lc->ma", WVinv, g_l, precision=HIGHEST
                 )
-                # ONE psum carries the reduced system over ICI.
+                # ONE psum carries the reduced system.
                 S_red, rhs_red = jax.lax.psum((S_red_p, rhs_red_p), AXIS)
                 rhs_full = g_p - rhs_red
 

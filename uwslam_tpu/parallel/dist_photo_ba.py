@@ -6,7 +6,7 @@ the OBSERVER axis: each device holds a slice of the window's keyframe images
 data; owner-side points/uv/intensities are a few hundred KB and stay
 replicated) and computes the residuals/Jacobians for its observers. The
 normal-equation blocks Hpp (K6,K6), Hpd (K6,K,N), Hdd (K,N), bp, bd are
-psum-reduced over ICI; the (tiny) Schur solve and the LM accept/reject run
+psum-reduced across devices; the (tiny) Schur solve and the LM accept/reject run
 replicated on every device, so the iterates stay bit-identical without any
 further communication — one psum per LM iteration is the entire comm cost.
 

@@ -1,9 +1,9 @@
 """Multi-host runtime: jax.distributed bring-up + mesh construction.
 
 The reference's only 'distributed' machinery is ROS pub/sub for visualization
-(SURVEY.md §5). This module is the TPU-native control plane for scaling past
-one host: initialize the jax.distributed service, build named meshes over all
-devices (ICI within a slice, DCN across hosts), and funnel host-side I/O
+(SURVEY.md §5). This module is the control plane for scaling past one host: initialize the
+jax.distributed service, build named meshes over all devices, and funnel
+host-side I/O
 through process 0.
 """
 from __future__ import annotations
@@ -43,9 +43,8 @@ def init_distributed(
 def landmark_mesh(max_devices: int | None = None) -> Mesh:
     """1-D mesh over all devices for landmark-sharded BA (axis 'lm').
 
-    Device order follows jax.devices(), which orders ICI-contiguous chips
-    first — the psum of the reduced camera system rides ICI within a slice
-    and only crosses DCN between hosts."""
+    Device order follows jax.devices(). The GPUs of one host are joined all
+    to all (NVLink), so the order does not matter there."""
     devs = jax.devices()
     if max_devices is not None:
         devs = devs[:max_devices]

@@ -11,7 +11,7 @@ pi((1/rho) R x + t) == pi(R x + rho t) holds for rho > 0.)
 
 dr/drho = grad I_tgt . J_pi(R x + rho t) . t  — analytic, batched over all
 points, one fused 3-channel sampling pass per iteration (the identical
-machinery as the pose hot loop, so it inherits the MXU sampling path).
+machinery as the pose hot loop, so it inherits its sampling form).
 
 This is the monocular depth estimator the reference lacks entirely (its
 mono path hardcodes z=1, /root/reference/src/Tracker.cpp:1228-1232); the
@@ -67,9 +67,8 @@ def refine_inverse_depth(
     min_slope-sized depth slope walks rho by whole units — measured on the
     drifting-exposure TUM stand-in as the dominant depth-prior error
     source (round 5)."""
-    from .photometric import _affine_residual, _sample_stack, _use_mxu_sampling
-    from ..image.pyramid import bilinear_sample
-    from ..utils.precision import HIGHEST
+    from .photometric import _affine_residual
+    from ..image.pyramid import sample_stack
 
     R = se3.rotation(T)
     t = se3.translation(T)
@@ -81,16 +80,8 @@ def refine_inverse_depth(
     def eval_at(rho):
         p = Rx + rho[:, None] * t                            # ~ target dir
         uv_t = cam.project(p)
-        if _use_mxu_sampling():
-            # Default (bf16) sampling: unlike FC tracking's Jacobian, the
-            # per-point depth slope only needs ~1% relative accuracy, and a
-            # HIGHEST-precision A/B on the TUM stand-in measured no gain.
-            vals, inb = _sample_stack(stacked, uv_t)
-            i_t, gx, gy = vals[0], vals[1], vals[2]
-        else:
-            i_t, inb = bilinear_sample(image, uv_t)
-            gx, _ = bilinear_sample(grad_x, uv_t)
-            gy, _ = bilinear_sample(grad_y, uv_t)
+        vals, inb = sample_stack(stacked, uv_t)
+        i_t, gx, gy = vals[0], vals[1], vals[2]
         r = i_t - pts.intensity
         if ab is not None:
             r = _affine_residual(r, pts.intensity, ab, jnp.ones_like(r, bool))

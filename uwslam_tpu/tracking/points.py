@@ -21,7 +21,7 @@ import jax
 import jax.numpy as jnp
 
 from ..camera.model import PinholeCamera
-from ..image.pyramid import bilinear_sample, bilinear_sample_auto
+from ..image.pyramid import bilinear_sample
 
 TUM_DEPTH_FACTOR = 0.0002  # reference src/Tracker.cpp:1223
 
@@ -30,7 +30,7 @@ class TrackPoints(NamedTuple):
     """Fixed-capacity reference-frame points for photometric tracking.
 
     All arrays have leading dim N (static capacity); `valid` masks real
-    entries. This is the TPU-native replacement for the reference's
+    entries. This is the array replacement for the reference's
     variable-length candidatePoints_ Mats (include/System.h:84-87)."""
 
     uv: jax.Array          # (N, 2) float32 pixel coords in the ref frame, level 0
@@ -71,12 +71,7 @@ def _depth_at(depth_image, uv, mono_z: float, max_edge_ratio: float = 1.15):
     corners = []
     for du, dv in ((0, 0), (1, 0), (0, 1), (1, 1)):
         cuv = jnp.stack([u0 + du, v0 + dv], axis=-1)
-        # HIGHEST precision: bf16 MXU truncation of 16-bit depth values
-        # would cost ~0.4% range error; intensity sampling tolerates that,
-        # depth geometry does not.
-        ci, _ = bilinear_sample_auto(
-            depth_image, cuv, precision=jax.lax.Precision.HIGHEST
-        )
+        ci, _ = bilinear_sample(depth_image, cuv)
         corners.append(ci * TUM_DEPTH_FACTOR)
     c00, c10, c01, c11 = corners
     d = (
@@ -110,7 +105,7 @@ def topk_gradient_points(
     grad_y: jax.Array | None = None,
 ) -> TrackPoints:
     """Select the `num_points` highest-gradient pixels, spatially spread by
-    first taking the per-block argmax over `block`x`block` tiles (the TPU-native
+    first taking the per-block argmax over `block`x`block` tiles (the array
     version of the reference's 32x32 mask grid, src/Tracker.cpp:342-359, and its
     mean+std threshold, :1324-1329 — top-k keeps shapes static).
 
@@ -118,8 +113,7 @@ def topk_gradient_points(
     (when `grad_x`/`grad_y` are passed) the Scharr gradients — ride the
     selection as SORT PAYLOADS instead of being re-read afterwards: the
     points land on integer pixels, so a post-hoc bilinear sample is just an
-    expensive identity (one one-hot sampling matmul per value, ~0.8 ms per
-    96-frame chunk each on v5e). Passing the gradients lets IC tracking skip
+    expensive identity. Passing the gradients lets IC tracking skip
     its whole level-0 reference pass (see TrackPoints.gx0).
 
     The per-block argmax itself is transpose-free: gradient magnitudes are
@@ -166,9 +160,8 @@ def topk_gradient_points(
     uu = (bx * block + inner_sel % block).astype(jnp.float32).reshape(-1)
 
     # Top-K via a multi-operand sort that carries the pixel coordinates and
-    # per-pixel values as payloads: top_k followed by scattered gathers
-    # would serialize on TPU (the same pathology as gather-based bilinear
-    # sampling — one such gather was ~80% of the selection kernel's 11 ms).
+    # per-pixel values as payloads, instead of top_k followed by scattered
+    # gathers of each value.
     k = min(num_points, Hb * Wb)
     operands = [-best_val, uu, vv, best_int]
     if grad_x is not None:
@@ -273,7 +266,7 @@ def patch_points(
     )
     depth, dok = _depth_at(depth_image, uv, mono_z)
     p3d = cam.unproject(uv, depth)
-    intensity, iok = bilinear_sample_auto(image, uv)
+    intensity, iok = bilinear_sample(image, uv)
     return TrackPoints(
         uv=uv, p3d=p3d, intensity=intensity,
         valid=valid_kp & inb & dok & iok,

@@ -7,7 +7,7 @@ MAD = 1.4826 * median|x - med| -> `mad_sigma`, Tukey biweight b=4.6851 ->
 reference lacks but its dead Ceres scaffolding intended
 (include/Tracker.h:295-505).
 
-TPU-native: medians via jnp.percentile on the masked residual buffer (sorting
+Array form: medians via jnp.percentile on the masked residual buffer (sorting
 network on device; no histograms), everything shape-static.
 """
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 The reference processes frames in a strictly sequential host loop
 (/root/reference/src/main_uw_slam.cpp:139-151), paying a host<->device round
-trip per frame. TPU-native design (SURVEY.md §2 parallelism table:
+trip per frame. Here (SURVEY.md §2 parallelism table:
 "batched/pipelined frame processing"): frames are stacked on device and the
 per-frame pipeline — pyramid build, gradient maps, top-K point selection,
 coarse-to-fine LM tracking — runs under lax.scan, so a whole chunk of N
@@ -119,10 +119,8 @@ def track_sequence_batched(
     constant-velocity prior — the robust choice for live odometry), this
     variant removes the serial dependency entirely: ingest is vmapped over
     frames and the coarse-to-fine LM runs vmapped over all N-1 pairs, so the
-    per-iteration sampling contractions become one large batched matmul on the
-    MXU instead of N-1 small dispatches inside a scan. Measured on v5e at
-    640x480/2048 pts: ~1.65x over the scan path (788 vs 477 frames/s at a
-    96-frame chunk) at equal ATE on the synthetic benchmark sequence.
+    per-iteration work is one large batched program instead of N-1 small
+    dispatches inside a scan.
 
     Identity init assumes adjacent-frame motion is within the coarse level's
     convergence basin (the reference's own operating regime — it never uses a
@@ -135,8 +133,7 @@ def track_sequence_batched(
 
     from ..image.pyramid import build_pyramid_batched
 
-    # Batched pyramid (Pallas scharr on TPU — one fused VMEM pass per frame
-    # per level); selection stays vmapped per frame.
+    # Batched pyramid; selection stays vmapped per frame.
     pyrs = build_pyramid_batched(frames, levels=levels)
 
     def select(img0, gmag0, gx0, gy0, depth_img):

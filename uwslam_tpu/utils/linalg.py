@@ -1,40 +1,28 @@
-"""Small-matrix linear algebra that stays on the VPU.
+"""Small-matrix linear algebra for the per-frame feature path.
 
-jnp.linalg.{eigh, svd} on TPU lower to the EighTpu custom call — a
-Jacobi-rotation loop that cannot fuse and costs milliseconds even for
-batched 2x2/5x5 problems (measured in the boot megastep: 3.8 ms for 256
-hypothesis SVDs + 2.2 ms for 768 triangulation eighs per frame). Every
-decomposition the per-frame path needs is tiny (n <= 9) and has either a
-closed form or a fast fixed-point iteration, so this module provides
-fusable, batch-broadcasting replacements:
+- cholesky_solve_unrolled: statically-unrolled SPD solve (any small n),
+  pure elementwise math that stays inside the surrounding XLA fusion
+- smallest_eigvec_spd: null vector of a small symmetric PSD matrix
 
-- cholesky_solve_unrolled: statically-unrolled SPD solve (any small n)
-- smallest_eigvec_spd: 2-vector inverse subspace iteration + Rayleigh-Ritz
-- sym3_eigh: unrolled cyclic-Jacobi symmetric 3x3 eigendecomposition
-- svd3: 3x3 SVD built on sym3_eigh
-
-NOTE: this rig pins default matmul precision to bf16 — every einsum here
-passes precision=HIGHEST (an unqualified FtF einsum measured 7.7e-3
-absolute error, which silently destroyed low-parallax geometry).
-
-All support leading batch dims and never leave XLA fusion land.
+The decompositions (eigh, SVD) are jnp.linalg's on every platform: LAPACK
+on the CPU, cuSOLVER on the GPU. On an H100 the feature path's first run
+took 61 s with cuSOLVER against 272 s with the unrolled Jacobi / inverse-
+iteration forms this module used to hold (compilation), for 2.4 ms/frame
+warm, and those forms were inexact on clustered spectra (PERF.md).
 """
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
 
-from .precision import HIGHEST
-
 
 def cholesky_solve_unrolled(A: jax.Array, b: jax.Array) -> jax.Array:
     """Solve the small SPD system A x = b via a statically-unrolled
     Cholesky (n = A.shape[-1]); broadcasts over leading batch dims.
 
-    jnp.linalg.solve lowers to an LU custom call that cannot fuse (~4 ms
-    per 95-pair tracking chunk on v5e); this unrolled form is pure
-    elementwise math that XLA folds into the surrounding fusion. A must
-    be (numerically) SPD — add a ridge before calling if unsure."""
+    Unlike jnp.linalg.solve (an LU library call), this unrolled form is
+    pure elementwise math that XLA folds into the surrounding fusion. A
+    must be (numerically) SPD — add a ridge before calling if unsure."""
     n = A.shape[-1]
     L = [[None] * n for _ in range(n)]
     for i in range(n):
@@ -61,203 +49,7 @@ def cholesky_solve_unrolled(A: jax.Array, b: jax.Array) -> jax.Array:
     return jnp.stack(x, axis=-1)
 
 
-def _on_cpu() -> bool:
-    """CPU keeps LAPACK: its eigh/svd custom calls are cheap and exact
-    there, and the CPU-mesh configs (5-7) measured a real accuracy cost
-    from the fused replacements (loop-closure edge quality, track-graph
-    inlier sets). The fused paths exist for TPU, where EighTpu/LU custom
-    calls cost milliseconds per frame and cannot fuse."""
-    return jax.default_backend() == "cpu"
-
-
-def smallest_eigvec_spd(A: jax.Array, iters: int = 8) -> jax.Array:
-    """Unit eigenvector of the smallest eigenvalue of a small symmetric
-    PSD matrix (..., n, n) via 2-vector inverse subspace iteration with a
-    closed-form Rayleigh-Ritz extraction.
-
-    Each step solves (A + eps*tr(A)*I) X = X_prev with the unrolled
-    Cholesky and re-orthogonalizes — everything fuses. Plain single-vector
-    inverse iteration converges like (λ1/λ2)^k, which stalls exactly in
-    the case SLAM triangulation hits constantly: a low-parallax two-view
-    DLT whose two smallest eigenvalues are both tiny (depth barely
-    constrained). Tracking a 2-D subspace converges like (λ2/λ3)^k
-    instead, and the final 2x2 Rayleigh-Ritz problem (closed form)
-    separates the true smallest direction inside it. On CPU this simply
-    calls jnp.linalg.eigh (see _on_cpu)."""
-    if _on_cpu():
-        _, V = jnp.linalg.eigh(A)
-        return V[..., :, 0]
-    n = A.shape[-1]
-    tr = jnp.trace(A, axis1=-2, axis2=-1)[..., None, None]
-    ridge = 1e-7 * tr + 1e-30
-    Ar = A + ridge * jnp.eye(n, dtype=A.dtype)
-    # Deterministic starts with components along every axis.
-    x = jnp.ones(A.shape[:-2] + (n,), A.dtype) + 1e-2 * jnp.arange(
-        n, dtype=A.dtype
-    )
-    y = jnp.ones(A.shape[:-2] + (n,), A.dtype) * jnp.where(
-        jnp.arange(n) % 2 == 0, 1.0, -1.0
-    ) + 3e-2 * jnp.arange(n, dtype=A.dtype)
-
-    def _orth(x, y):
-        x = x / jnp.linalg.norm(x, axis=-1, keepdims=True).clip(1e-30)
-        y = y - jnp.sum(x * y, axis=-1, keepdims=True) * x
-        ny = jnp.linalg.norm(y, axis=-1, keepdims=True)
-        # Collapse guard: restart y off-axis from x.
-        alt = jnp.roll(x, 1, axis=-1) * jnp.where(
-            jnp.arange(n) % 2 == 0, 1.0, -1.0
-        )
-        alt = alt - jnp.sum(x * alt, axis=-1, keepdims=True) * x
-        alt = alt / jnp.linalg.norm(alt, axis=-1, keepdims=True).clip(1e-30)
-        return x, jnp.where(ny > 1e-12, y / ny.clip(1e-30), alt)
-
-    x, y = _orth(x, y)
-    for _ in range(iters):
-        x = cholesky_solve_unrolled(Ar, x)
-        y = cholesky_solve_unrolled(Ar, y)
-        x, y = _orth(x, y)
-    # Rayleigh-Ritz on span{x, y}: closed-form smallest eigvec of the 2x2
-    # projected matrix [[a, b], [b, c]].
-    Ax = jnp.einsum("...ij,...j->...i", A, x, precision=HIGHEST)
-    Ay = jnp.einsum("...ij,...j->...i", A, y, precision=HIGHEST)
-    a = jnp.sum(x * Ax, axis=-1)
-    b = jnp.sum(x * Ay, axis=-1)
-    c = jnp.sum(y * Ay, axis=-1)
-    # Smallest eigenvalue of [[a,b],[b,c]]; eigenvector via the better-
-    # conditioned of the two row equations.
-    diff = 0.5 * (a - c)
-    lam = 0.5 * (a + c) - jnp.sqrt(diff * diff + b * b)
-    # (a - lam) alpha + b beta = 0  ->  (alpha, beta) ~ (b, lam - a)
-    # b alpha + (c - lam) beta = 0  ->  (alpha, beta) ~ (lam - c, b)
-    use1 = jnp.abs(a - lam) >= jnp.abs(c - lam)
-    alpha = jnp.where(use1, b, lam - c)
-    beta = jnp.where(use1, lam - a, b)
-    nrm = jnp.sqrt(alpha * alpha + beta * beta)
-    # Degenerate 2x2 (b ~ 0, a ~ c): x and y are both eigenvectors — keep x.
-    alpha = jnp.where(nrm > 1e-20, alpha / nrm.clip(1e-30), 1.0)
-    beta = jnp.where(nrm > 1e-20, beta / nrm.clip(1e-30), 0.0)
-    v = alpha[..., None] * x + beta[..., None] * y
-    return v / jnp.linalg.norm(v, axis=-1, keepdims=True).clip(1e-30)
-
-
-def sym3_eigh(A: jax.Array, sweeps: int = 6) -> tuple[jax.Array, jax.Array]:
-    """Eigendecomposition of a symmetric 3x3 (..., 3, 3) by statically-
-    unrolled cyclic Jacobi.
-
-    Returns (w, V) with eigenvalues ASCENDING (jnp.linalg.eigh order) and
-    V[..., :, i] the unit eigenvector of w[..., i]. Jacobi converges
-    quadratically — `sweeps`=6 reaches f32 machine precision — and every
-    rotation is pure elementwise math that fuses, unlike the EighTpu
-    custom call. (A closed-form Cardano+cross-product version measured
-    ~1e-3 eigenvector error in f32 — enough to poison low-parallax
-    two-view geometry; Jacobi gets ~1e-7.) On CPU this simply calls
-    jnp.linalg.eigh (see _on_cpu)."""
-    if _on_cpu():
-        return jnp.linalg.eigh(A)
-    a00 = A[..., 0, 0]
-    a01 = A[..., 0, 1]
-    a02 = A[..., 0, 2]
-    a11 = A[..., 1, 1]
-    a12 = A[..., 1, 2]
-    a22 = A[..., 2, 2]
-    d = [a00, a11, a22]
-    o = {(0, 1): a01, (0, 2): a02, (1, 2): a12}
-    one = jnp.ones_like(a00)
-    zero = jnp.zeros_like(a00)
-    V = [[one, zero, zero], [zero, one, zero], [zero, zero, one]]
-
-    def rot(p, q, r):
-        """Zero out o[(p,q)] with a Givens rotation; update row/col r."""
-        apq = o[(p, q)]
-        tau = (d[q] - d[p]) / (2.0 * jnp.where(apq == 0, 1.0, apq))
-        # sign(0) = 0 would stall the 45-degree case (equal diagonals,
-        # nonzero off-diagonal) — use a zero-free sign.
-        sgn = jnp.where(tau >= 0, 1.0, -1.0)
-        t = sgn / (jnp.abs(tau) + jnp.sqrt(1.0 + tau * tau))
-        t = jnp.where(apq == 0, 0.0, t)
-        c = 1.0 / jnp.sqrt(1.0 + t * t)
-        s = t * c
-        dp = d[p] - t * apq
-        dq = d[q] + t * apq
-        d[p], d[q] = dp, dq
-        o[(p, q)] = jnp.zeros_like(apq)
-        # remaining off-diagonals touching p or q (r is the third index)
-        arp = o[(min(r, p), max(r, p))]
-        arq = o[(min(r, q), max(r, q))]
-        o[(min(r, p), max(r, p))] = c * arp - s * arq
-        o[(min(r, q), max(r, q))] = s * arp + c * arq
-        for i in range(3):
-            vip, viq = V[i][p], V[i][q]
-            V[i][p] = c * vip - s * viq
-            V[i][q] = s * vip + c * viq
-
-    for _ in range(sweeps):
-        rot(0, 1, 2)
-        rot(0, 2, 1)
-        rot(1, 2, 0)
-
-    # Ascending sort of the 3 (eigenvalue, column) pairs via an explicit
-    # swap network (argsort would lower to a sort custom call).
-    cols = [[V[0][j], V[1][j], V[2][j]] for j in range(3)]
-
-    def swap(j, k):
-        lt = d[j] <= d[k]
-        d[j], d[k] = (
-            jnp.where(lt, d[j], d[k]), jnp.where(lt, d[k], d[j])
-        )
-        for r in range(3):
-            cj, ck = cols[j][r], cols[k][r]
-            cols[j][r] = jnp.where(lt, cj, ck)
-            cols[k][r] = jnp.where(lt, ck, cj)
-
-    swap(0, 1)
-    swap(1, 2)
-    swap(0, 1)
-    w_asc = jnp.stack(d, axis=-1)
-    V_asc = jnp.stack(
-        [jnp.stack([cols[j][r] for j in range(3)], axis=-1) for r in range(3)],
-        axis=-2,
-    )
-    return w_asc, V_asc
-
-
-def svd3(F: jax.Array) -> tuple[jax.Array, jax.Array, jax.Array]:
-    """SVD of a 3x3 (..., 3, 3): returns (U, s, Vt) with s DESCENDING
-    (jnp.linalg.svd order) and U/Vt proper up to per-column signs.
-
-    V from the closed-form eigendecomposition of F^T F; U_i = F v_i / s_i
-    for the two leading columns, completed by their cross product (exact
-    for the rank-2 matrices this framework decomposes — E and F — and
-    correct for full-rank inputs up to the sign conventions SVD leaves
-    free anyway). On CPU this simply calls jnp.linalg.svd (see
-    _on_cpu)."""
-    if _on_cpu():
-        return jnp.linalg.svd(F)
-    FtF = jnp.einsum("...ji,...jk->...ik", F, F, precision=HIGHEST)
-    _, V = sym3_eigh(FtF)            # ascending
-    Vd = V[..., ::-1]                # columns by descending singular value
-    u0 = jnp.einsum("...ij,...j->...i", F, Vd[..., :, 0], precision=HIGHEST)
-    u1 = jnp.einsum("...ij,...j->...i", F, Vd[..., :, 1], precision=HIGHEST)
-    u2f = jnp.einsum("...ij,...j->...i", F, Vd[..., :, 2], precision=HIGHEST)
-    # Singular values as ||F v_i|| (exact for right singular vectors) —
-    # sqrt(eigenvalue) squares the scale and loses half the mantissa,
-    # which showed up as 3e-3 reconstruction error on repeated-sigma
-    # (essential-like) matrices.
-    s = jnp.stack(
-        [
-            jnp.linalg.norm(u0, axis=-1),
-            jnp.linalg.norm(u1, axis=-1),
-            jnp.linalg.norm(u2f, axis=-1),
-        ],
-        axis=-1,
-    )
-    u0 = u0 / jnp.linalg.norm(u0, axis=-1, keepdims=True).clip(1e-30)
-    u1 = u1 - jnp.sum(u1 * u0, axis=-1, keepdims=True) * u0
-    u1 = u1 / jnp.linalg.norm(u1, axis=-1, keepdims=True).clip(1e-30)
-    u2 = jnp.cross(u0, u1)
-    # Align u2 with F v2 so full-rank inputs reconstruct (for rank-2 the
-    # sign is free, as in any SVD).
-    d = jnp.sum(u2 * u2f, axis=-1, keepdims=True)
-    u2 = u2 * jnp.where(d < 0, -1.0, 1.0)
-    U = jnp.stack([u0, u1, u2], axis=-1)
-    return U, s, jnp.swapaxes(Vd, -2, -1)
+def smallest_eigvec_spd(A: jax.Array) -> jax.Array:
+    """Unit eigenvector of the smallest eigenvalue of a small symmetric PSD
+    matrix (..., n, n): the null vector of a DLT system."""
+    return jnp.linalg.eigh(A)[1][..., :, 0]

@@ -1,9 +1,9 @@
 """Matmul precision helpers.
 
-On TPU the default matmul precision is bfloat16; geometry math (Lie algebra,
-3x3/4x4 composes, normal equations) needs full f32 MXU passes or it loses
-~3 decimal digits per product (observed: 1e-2 orthogonality error in a single
-Rodrigues W@W on v5e). These helpers pin HIGHEST precision; the FLOP cost is
+On the GPU an f32 matmul at default precision may run in TF32, which keeps
+about three decimal digits; geometry math (Lie algebra, 3x3/4x4 composes,
+normal equations) needs full f32 or it loses digits per product. These
+helpers pin HIGHEST precision; the FLOP cost is
 negligible for small matrices, and bulk kernels that tolerate bf16 (e.g.
 descriptor matching) opt in to default precision explicitly.
 """

@@ -4,7 +4,7 @@ reference has none; only an undefined calculateTime helper at
 
 - StageTimer: named wall-clock accumulators with device sync, for per-frame
   pipeline breakdowns (ingest / pyramid / select / track / ba).
-- trace(): context manager around jax.profiler for TPU timeline capture.
+- trace(): context manager around jax.profiler for device timeline capture.
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ import jax
 
 
 class StageTimer:
-    """Accumulates wall time per named stage; blocks on device results so TPU
+    """Accumulates wall time per named stage; blocks on device results so device
     async dispatch doesn't misattribute time."""
 
     def __init__(self, sync: bool = True):

@@ -6,7 +6,7 @@ imshow panels (SURVEY.md §4 de-facto validation mechanisms):
 - DebugShowWarpedPerspective 4-pane GN result (:1694)
 - DebugShowJacobians 6-pane (:1541)
 
-Interactive cv::imshow windows make no sense on a headless TPU host; these
+Interactive cv::imshow windows make no sense on a headless accelerator host; these
 write PNG panels instead, computed from the same quantities the tracker uses.
 """
 from __future__ import annotations
